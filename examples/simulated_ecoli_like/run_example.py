@@ -128,7 +128,7 @@ def main():
                / "pass_threshold_5per").read_text()
     # byte-identity between gwas-mp and gwas holds for a common backend and
     # is asserted in CI (tests/test_multiprocess.py); here the single-
-    # process run may have used the TPU (f32 stats fallback) while the mp
+    # process run may have used the accelerator (device32 LMM) while the mp
     # processes ran CPU f64, so compare the passing k-mer SETS
     mp_set = {ln.split("\t")[0] for ln in mp_pass.splitlines()}
     sp_set = {ln.split("\t")[0] for ln in passed.splitlines()}

@@ -1,4 +1,4 @@
-"""kmersgwas_tpu: TPU-native k-mer GWAS engine.
+"""kmersgwas_tpu: k-mer GWAS engine in JAX (GPU scan kernels).
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of
 voichek/kmersGWAS (reference-genome-free k-mer association studies):

@@ -22,7 +22,6 @@ def _add_gwas(sub):
     p.add_argument("--pattern_counter", action="store_true")
     p.add_argument("--kinship", default=None, help="precomputed kinship TSV")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--pallas", action="store_true")
     p.add_argument("--snp_matrix", default=None, help="PLINK base for the SNP arm")
     p.add_argument("--run_on_snps_one_step", action="store_true")
     p.add_argument("--run_on_snps_two_steps", action="store_true")
@@ -44,9 +43,9 @@ def _add_gwas(sub):
                    help="shard the scan over this many devices")
     p.add_argument("--score_precision", default="default",
                    choices=["default", "highest"],
-                   help="scan score-GEMM matmul precision on TPU (highest = "
-                        "f32-faithful, slower; candidates are exactly "
-                        "re-scored by the LMM either way)")
+                   help="scan score-GEMM precision (highest = f32-faithful, "
+                        "slower; candidates are exactly re-scored by the "
+                        "LMM either way)")
     p.add_argument("--checkpoint", default=None,
                    help="base path for resumable kinship/scan checkpoints "
                         "(<base>.kin / <base>.scan)")
@@ -61,7 +60,7 @@ def _add_gwas(sub):
             n_permutations=a.permutations, maf=a.maf, mac=a.mac,
             min_data_points=a.min_data_points, batch_size=a.batch_size,
             pattern_counter=a.pattern_counter, kinship_path=a.kinship,
-            seed=a.seed, use_pallas=True if a.pallas else "auto",
+            seed=a.seed,
             run_kmers=not a.dont_run_on_kmers, snps_matrix=a.snp_matrix,
             run_snps=("one_step" if a.run_on_snps_one_step else
                       "two_steps" if a.run_on_snps_two_steps else None),
@@ -100,7 +99,6 @@ def _add_gwas_mp(sub):
     p.add_argument("--pattern_counter", action="store_true")
     p.add_argument("--kinship", default=None, help="precomputed kinship TSV")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--pallas", action="store_true")
     p.add_argument("--dtable_cache", default=None,
                    help="base path for per-process device-native table caches")
     p.add_argument("--kmers_for_no_perm_phenotype", type=int, default=None,
@@ -110,7 +108,7 @@ def _add_gwas_mp(sub):
                    choices=["auto", "host64", "device32"])
     p.add_argument("--score_precision", default="default",
                    choices=["default", "highest"],
-                   help="scan score-GEMM matmul precision on TPU")
+                   help="scan score-GEMM precision")
     p.add_argument("--checkpoint", default=None,
                    help="base path for resumable per-process kinship/scan "
                         "checkpoints (<base>.kin.p<pid> / <base>.scan.p<pid>)")
@@ -133,7 +131,7 @@ def _add_gwas_mp(sub):
             n_permutations=a.permutations, maf=a.maf, mac=a.mac,
             min_data_points=a.min_data_points, batch_size=a.batch_size,
             pattern_counter=a.pattern_counter, kinship_path=a.kinship,
-            seed=a.seed, use_pallas=True if a.pallas else "auto",
+            seed=a.seed,
             dtable_cache=a.dtable_cache,
             n_extra_phenotype_kmers=a.n_extra_phenotype_kmers,
             remove_intermediates=not a.dont_remove_intermediates,
@@ -279,11 +277,10 @@ def _add_associate(sub):
     p.add_argument("--mac", type=int, default=5)
     p.add_argument("--pattern_counter", action="store_true")
     p.add_argument("--kmers_scores", action="store_true")
-    p.add_argument("--pallas", action="store_true")
     p.add_argument("--first_phenotype_best", type=int, default=None)
     p.add_argument("--score_precision", default="default",
                    choices=["default", "highest"],
-                   help="score GEMM matmul precision on TPU")
+                   help="score GEMM precision")
     p.add_argument("--certify_topk", action="store_true",
                    help="carry a candidate band and exactly re-score it in "
                         "f64 at finalize, certifying the selected set "
@@ -307,7 +304,6 @@ def _add_associate(sub):
                              maf=a.maf, mac=a.mac, batch_size=a.batch_size,
                              count_patterns=a.pattern_counter,
                              first_phenotype_top=a.first_phenotype_best,
-                             use_pallas=True if a.pallas else "auto",
                              score_precision=a.score_precision,
                              certify_topk=a.certify_topk, mesh=mesh)
         if res.certified is not None:
@@ -357,7 +353,6 @@ def _add_associate_mp(sub):
     p.add_argument("--batch_size", type=int, default=2_000_000)
     p.add_argument("--maf", type=float, default=0.05)
     p.add_argument("--mac", type=int, default=5)
-    p.add_argument("--pallas", action="store_true")
     p.add_argument("--pattern_counter", action="store_true")
     p.add_argument("--first_phenotype_best", type=int, default=None)
     p.add_argument("--dtable_cache", default=None,
@@ -365,7 +360,7 @@ def _add_associate_mp(sub):
                         "cache (<base>.p<pid>of<nproc>)")
     p.add_argument("--score_precision", default="default",
                    choices=["default", "highest"],
-                   help="score GEMM matmul precision on TPU")
+                   help="score GEMM precision")
     p.add_argument("--coordinator", required=True,
                    help="host:port of process 0")
     p.add_argument("--num_processes", type=int, required=True)
@@ -389,8 +384,7 @@ def _add_associate_mp(sub):
             count_patterns=a.pattern_counter,
             first_phenotype_top=a.first_phenotype_best,
             dtable_cache=a.dtable_cache,
-            score_precision=a.score_precision,
-            use_pallas=True if a.pallas else "auto")
+            score_precision=a.score_precision)
         if a.process_id == 0:     # replicated result: one writer
             reader = KmersTableReader(a.kmers_table,
                                       names_to_use=pheno.accessions)
@@ -600,7 +594,7 @@ def _add_histogram(sub):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="kmersgwas_tpu",
-                                 description="TPU-native k-mer GWAS toolkit")
+                                 description="k-mer GWAS toolkit (JAX; GPU scan kernels)")
     sub = ap.add_subparsers(dest="command", required=True)
     for add in (_add_gwas, _add_gwas_mp, _add_count, _add_strand_merge,
                 _add_list_kmers,
@@ -610,6 +604,8 @@ def main(argv=None):
                 _add_filter_kmers, _add_kmc, _add_histogram):
         add(sub)
     args = ap.parse_args(argv)
+    from ..utils import enable_compile_cache
+    enable_compile_cache()
     return args.func(args)
 
 

@@ -1,6 +1,6 @@
 """2-bit k-mer codec, canonization and k-mer-space partitioning.
 
-Re-implements (TPU-first, vectorized NumPy on host) the semantics of the
+Re-implements (vectorized NumPy on host) the semantics of the
 reference codec in voichek/kmersGWAS:
 
   * 2-bit encoding A=0 C=1 G=2 T=3, last base in bits 0..1

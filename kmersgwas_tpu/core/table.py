@@ -1,6 +1,6 @@
 """Streaming reader of the k-mers presence/absence table.
 
-TPU-first equivalent of `MultipleKmersDataBases`
+Device-first equivalent of `MultipleKmersDataBases`
 (src/kmers_multiple_databases.{h,cpp}): stream `.table` rows in bounded
 batches, "squeeze" the file's accession columns down to the used subset (in
 phenotype order, by name — kmers_multiple_databases.cpp:297-311), filter by

@@ -1,4 +1,4 @@
-// kgt_ingest: native host-side ingest for the TPU k-mer GWAS engine.
+// kgt_ingest: native host-side ingest for the k-mer GWAS engine.
 //
 // Replaces the reference stack's external KMC 3 counter plus the C++ ingest
 // binaries (kmers_add_strand_information, list_kmers_found_in_multiple_samples,

@@ -2,7 +2,7 @@
 
 The k-mer presence/absence matrix lives in HBM as uint32 bit-planes
 (rows = k-mers, 32 samples per word, LSB-first — see core/table.py). These
-helpers unpack lanes on the VPU right before feeding the MXU, so HBM traffic
+helpers unpack lanes right before feeding the matrix units, so HBM traffic
 stays at 1 bit/sample instead of 8-32 bits.
 """
 from __future__ import annotations
@@ -22,7 +22,7 @@ def unpack_bits(packed: jax.Array, dtype=jnp.float32) -> jax.Array:
 def unpack_bits_pm1(packed: jax.Array) -> jax.Array:
     """(..., W) uint32 -> (..., W*32) int8 in {-1, +1} (bit b -> 2b-1).
 
-    Feeds the int8 MXU path for exact XNOR/kinship accumulation.
+    Feeds the int8 GEMM path for exact XNOR/kinship accumulation.
     """
     shifts = jnp.arange(32, dtype=jnp.uint32)
     bits = ((packed[..., None] >> shifts) & jnp.uint32(1)).astype(jnp.int8)

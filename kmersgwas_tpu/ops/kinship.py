@@ -1,13 +1,13 @@
-"""EMMA kinship from the k-mers table, as exact integer MXU GEMMs.
+"""EMMA kinship from the k-mers table, as exact integer GEMMs.
 
 Reference (src/kmers_multiple_databases.cpp:418-438 + emma_kinship_kmers.cpp):
 for every MAC-passing k-mer row g, K[i][j] += 1 ^ g_i ^ g_j (an XNOR count),
 then normalize by the number of k-mers used and set the diagonal to 1.
 
-TPU formulation: encode bits as A in {-1,+1} int8. Then
+Device formulation: encode bits as A in {-1,+1} int8. Then
     (A^T A)[i,j] = sum_rows (2g_i-1)(2g_j-1) = #match - #mismatch
     xnor_count   = (n_rows + A^T A) / 2
-int8 x int8 -> int32 on the MXU is exact, so the result matches the
+int8 x int8 -> int32 accumulation is exact, so the result matches the
 reference's integer arithmetic bit-for-bit before the final float divide.
 
 Padded sample lanes contribute only to padded rows/cols of K and are sliced

@@ -128,9 +128,8 @@ def strided_top_k_from_bmax(sc: jax.Array, bmax: jax.Array, k: int, *,
     lanes = (tile[:, :, None] * tile_rows + b_in[:, :, None]
              + nb_tile * jnp.arange(block, dtype=bsel.dtype))  # (P, k, block)
     cand_idx = lanes.reshape(p, k * block)
-    # gather candidate scores at BLOCK granularity: a scattered per-lane
-    # take_along_axis costs ~14.5 ns/index on TPU (measured), so P*k*block
-    # 4-byte gathers dominate the whole scan step. Viewing sc as
+    # gather candidate scores at BLOCK granularity: P*k*block scattered
+    # 4-byte per-lane gathers would dominate the whole scan step. Viewing sc as
     # (P, tiles, block, nb_tile), block (t, b) is the 16-element slice
     # [p, t, :, b] — one gather index per BLOCK (16x fewer), each pulling a
     # strided 16-element slice.

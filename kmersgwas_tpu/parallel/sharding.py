@@ -3,12 +3,13 @@
 The reference is single-node and file-bound (SURVEY.md §2.5: no MPI/NCCL).
 Here the *k-mer axis* — billions of table rows — is the sharding axis:
 
-  * intra-slice (ICI): a 1-D device mesh ("kmers",). Each device scores its
-    row shard and reduces it to K candidates; only (P, K) candidates cross
-    the interconnect (all_gather), then every device merges identically so
-    the carried top-k state stays replicated. Kinship is a shard-local
-    int8 GEMM + `psum`.
-  * cross-host (DCN): the k-mer space is range-partitioned with the same
+  * within a host: a 1-D device mesh ("kmers",) — every card reaches
+    every other at the same rate, so the mesh follows the algorithm alone.
+    Each device scores its row shard and reduces it to K candidates; only
+    (P, K) candidates cross the interconnect (all_gather), then every
+    device merges identically so the carried top-k state stays replicated.
+    Kinship is a shard-local int8 GEMM + `psum`.
+  * across hosts: the k-mer space is range-partitioned with the same
     slice boundaries the reference uses (core/codec.py step_bounds); each
     host streams only its contiguous uint62 range of the table, so counts
     and rows never need to move between hosts until the final top-k merge.
@@ -60,7 +61,7 @@ def build_sharded_scan_step(mesh: Mesh, *, n_used: int, min_count: int, k: int):
         kk = min(k, sc.shape[1])
         v, i = topk_ops.blocked_top_k(sc, kk)
         blo, bhi = lo[i], hi[i]
-        # ship only candidates across ICI
+        # ship only candidates across the interconnect
         gv = jax.lax.all_gather(v, AXIS, axis=1, tiled=True)    # (Pph, D*kk)
         glo = jax.lax.all_gather(blo, AXIS, axis=1, tiled=True)
         ghi = jax.lax.all_gather(bhi, AXIS, axis=1, tiled=True)
@@ -121,10 +122,9 @@ def init_sharded_buffered_state(mesh: Mesh, n_phenotypes: int, k: int,
 
 
 def build_sharded_scan_step_buffered(mesh: Mesh, *, n_used: int,
-                                     min_count: int, kernel: str = "xla",
-                                     block: int = 16, cand_c: int = 512,
-                                     cand_k: int = 2048):
-    """THE production multi-device scan step: the fused score kernel +
+                                     min_count: int, block: int = 16,
+                                     cand_c: int = 512, cand_k: int = 2048):
+    """Multi-device buffered scan step: the XLA score +
     buffered deferred top-k merge (ops/scanstep.scan_step_buffered) running
     independently on every device's row shard under `shard_map`.
 
@@ -147,7 +147,7 @@ def build_sharded_scan_step_buffered(mesh: Mesh, *, n_used: int,
                                      bhi[0], bn[0], th[0])
         new = ss.scan_step_buffered.__wrapped__(
             state, packed, popcnt, lo, hi, yp, ysum, n_used=n_used,
-            min_count=min_count, kernel=kernel, block=block,
+            min_count=min_count, block=block,
             cand_c=cand_c, cand_k=cand_k)
         return tuple(x[None] for x in new)
 
@@ -169,11 +169,10 @@ def build_sharded_scan_step_buffered(mesh: Mesh, *, n_used: int,
 def build_sharded_scan_step_compact(mesh: Mesh, *, n_used: int,
                                     min_count: int, kernel: str = "xla",
                                     block: int = 16, cand_c: int = 256,
-                                    cand_k: int = 2048, tile_rows: int = 2048,
+                                    cand_k: int = 2048, tile_rows: int = 64,
                                     cand_q: int | None = None,
                                     cand_c2: int | None = None,
-                                    precision: str = "default",
-                                    cand_w: int | None = None):
+                                    precision: str = "default"):
     """THE production multi-device scan step: the compact tile-max kernel +
     deferred top-k buffering (ops/scanstep.scan_step_compact) running
     independently on every device's row shard under `shard_map`. Same
@@ -190,8 +189,7 @@ def build_sharded_scan_step_compact(mesh: Mesh, *, n_used: int,
             state, packed, popcnt, lo, hi, yp, ysum, n_used=n_used,
             min_count=min_count, kernel=kernel, block=block,
             cand_c=cand_c, cand_k=cand_k, tile_rows=tile_rows,
-            cand_q=cand_q, cand_c2=cand_c2, precision=precision,
-            cand_w=cand_w)
+            cand_q=cand_q, cand_c2=cand_c2, precision=precision)
         return tuple(x[None] for x in new)
 
     sharded = jax.shard_map(
@@ -237,7 +235,7 @@ def finalize_sharded_buffered(state, mesh: Mesh | None = None) -> list:
     rows int64), -inf entries dropped.
 
     Single-process meshes fetch all shards directly. For MULTI-process
-    meshes pass `mesh`: per-device candidates are all_gathered over ICI/DCN
+    meshes pass `mesh`: per-device candidates are all_gathered across processes
     so every process holds the full candidate set (the only collective the
     scan ever issues — once, at the end).
     """
@@ -300,7 +298,7 @@ def build_sharded_kinship_accumulate(mesh: Mesh):
 def build_sharded_kinship_step(mesh: Mesh):
     """-> jitted (acc (Npad,Npad) int32 replicated, packed sharded) -> acc.
 
-    Each device computes its shard's A^T A on the int8 MXU; `psum` over the
+    Each device computes its shard's A^T A as an int8 GEMM; `psum` over the
     k-mer axis keeps the accumulator replicated. All-zero padding rows must
     be EXCLUDED upstream (they are not neutral under the ±1 encoding) —
     shards must carry exact row counts.
@@ -339,7 +337,7 @@ def replicate(mesh: Mesh, *arrays):
 
 
 def host_range_of_kmer_space(host_id: int, n_hosts: int, kmer_len: int):
-    """Contiguous uint62 k-mer range owned by `host_id` for DCN sharding,
+    """Contiguous uint62 k-mer range owned by `host_id` for cross-host sharding,
     cut at the reference's slice boundaries so per-host table shards can be
     built independently and byte-identically."""
     from ..core.codec import step_bounds

@@ -22,7 +22,7 @@ into it (another 128 MB), and re-allocated popcnt/row arrays, touching
 
 Reference hot-loop analogue: the Load/Associations split of
 src/associate_kmers.cpp:123-148 — Load is the bottleneck there too; this is
-its TPU-native answer.
+its device-native answer.
 """
 from __future__ import annotations
 

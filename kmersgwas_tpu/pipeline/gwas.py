@@ -48,14 +48,13 @@ class GWASConfig:
     kinship_maf: float = 0.05
     kinship_path: str | None = None     # precomputed kinship (else from table)
     seed: int = 0
-    use_pallas: str | bool = "auto"
     lmm_grid: int = 64
     lmm_refine: int = 40
     lmm_backend: str = "auto"           # "auto" | "host64" | "device32":
                                         # host64 = CPU float64 (R/GEMMA
                                         # precision); device32 = packed bits
                                         # + f32 profile-LL on the accelerator
-                                        # (the GEMMA farm as one TPU kernel);
+                                        # (the GEMMA farm as one device jit);
                                         # auto picks device32 for large
                                         # candidate sets when an accelerator
                                         # is present
@@ -84,10 +83,10 @@ class GWASConfig:
     checkpoint_every: int = 20          # batches between checkpoint writes
                                         # (both stages)
     score_precision: str = "default"    # scan score-GEMM precision:
-                                        # "default" (bf16 products, ~2e-3
-                                        # relative — candidates are exactly
-                                        # re-scored by the LMM) | "highest"
-                                        # (f32-faithful, 3-6x slower); same
+                                        # "default" (bf16 phenotype operand,
+                                        # up to ~7e-3 relative — candidates
+                                        # are exactly re-scored by the LMM) |
+                                        # "highest" (f32-faithful); same
                                         # knob as associate --score_precision
 
 
@@ -108,20 +107,22 @@ def _stats_device():
     replace was double precision). The scan kernels pin their own dtypes and
     devices, so the global x64 switch does not affect them.
 
-    Fallback: sessions restricted to a TPU-only platform (JAX_PLATFORMS)
-    expose no CPU backend, and some accelerators lack f64 kernels — there
-    the stats run in f32 on the default device (REMLE delta still ~1e-3
-    relative; p-values are computed in log space, so ranking and threshold
-    decisions are unaffected)."""
+    Fallback: sessions whose JAX_PLATFORMS leaves out the CPU expose no CPU
+    backend — there the stats run in f32 on the default device (REMLE delta
+    still ~1e-3 relative; p-values are computed in log space, so ranking
+    and threshold decisions are unaffected) and a warning says so."""
     import contextlib
     import jax
     try:
         cpu = jax.devices("cpu")[0]
     except RuntimeError:
+        import warnings
+        warnings.warn("no CPU backend (JAX_PLATFORMS); REML/LMM statistics "
+                      "run in float32 on the default device", RuntimeWarning)
         return contextlib.nullcontext()
     stack = contextlib.ExitStack()
     # scoped x64: a GLOBAL jax_enable_x64 flip would leak i64 into the
-    # Pallas scan kernel's index maps, which Mosaic cannot legalize.
+    # scan kernel's index maps and argmax lanes.
     # jax.enable_x64 is the public scoped context (jax >= 0.9); older
     # versions had it under jax.experimental.
     enable_x64 = getattr(jax, "enable_x64", None)
@@ -271,7 +272,7 @@ def run_gwas(cfg: GWASConfig) -> GWASResult:
             cfg.kmers_table, used, tr.transformed, tr.names,
             kmer_len=cfg.kmer_len, n_top=cfg.n_kmers, maf=cfg.maf, mac=cfg.mac,
             batch_size=cfg.batch_size, count_patterns=cfg.pattern_counter,
-            use_pallas=cfg.use_pallas, dtable_cache=cfg.dtable_cache,
+            dtable_cache=cfg.dtable_cache,
             first_phenotype_top=cfg.n_extra_phenotype_kmers, mesh=mesh,
             score_precision=cfg.score_precision,
             checkpoint_path=(cfg.checkpoint_base + ".scan"
@@ -436,8 +437,8 @@ def _post_scan_stages(cfg: GWASConfig, out: Path, kmers_dir: Path, result,
         "n_tested": result.n_tested,
         # result provenance: which exact-LMM backend produced the p-values
         # ("auto" cuts over to the f32 device path above 2e8 variant-tests
-        # x samples; ~1e-3 relative deviation from the f64 route — see
-        # PARITY.md)
+        # x samples; -log10 p within ~1e-2 of the f64 route where p < 1e-3
+        # — see PARITY.md)
         "lmm_backend": backend,
         "score_precision": cfg.score_precision,
         "n_pass_5per": len(pass5), "n_pass_10per": len(pass10),
@@ -621,7 +622,6 @@ def run_distributed_gwas(cfg: GWASConfig):
             cfg.kmers_table, used, tr.transformed, tr.names,
             kmer_len=cfg.kmer_len, n_top=cfg.n_kmers, maf=cfg.maf,
             mac=cfg.mac, batch_size=cfg.batch_size,
-            use_pallas=cfg.use_pallas,
             first_phenotype_top=cfg.n_extra_phenotype_kmers,
             count_patterns=cfg.pattern_counter,
             dtable_cache=cfg.dtable_cache,

@@ -8,7 +8,7 @@ heterozygous (+1/2 dose) and missing genotypes:
   score = (N*yigi - S_gi*ysum)^2 / (N*(N*S_gi2 - S_gi^2)),  N = #observed
   score = 0 when S_gi < mac or (N - S_gi) < mac
 
-The three bit-planes become three rows of one batched GEMM on the MXU; the
+The three bit-planes become three rows of one batched GEMM; the
 per-phenotype loop (associate_snps.cpp:55-60) is the GEMM's P axis. The top-N
 selection returns ROW-SORTED indices like get_rows_sorted_indices
 (best_associations_heap.cpp:135-147), and selected SNPs are re-exported by

@@ -9,7 +9,7 @@ into K += g g' + (1-g)(1-g)':
 then off-diagonals divided by 2 * n_snps_with_any_observed_genotype and the
 diagonal fixed at 1. Implemented as chunked float64 GEMMs (this runs once per
 dataset and is not on the hot path; exactness over the reference's double
-arithmetic is preferred to MXU speed here).
+arithmetic is preferred to matrix-unit speed here).
 """
 from __future__ import annotations
 

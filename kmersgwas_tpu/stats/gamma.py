@@ -8,7 +8,7 @@ Equivalent of update_gamma_precalculations + calc_gamma
 
 over (by default) the first ~100k MAC-passing k-mers, then
 gamma = sum_ij Vinv_ij R_ij. The per-row centering + scaling feeds one
-standardized GEMM per batch on the MXU instead of the reference's O(rows*N^2)
+standardized GEMM per batch on the device instead of the reference's O(rows*N^2)
 scalar loop.
 """
 from __future__ import annotations

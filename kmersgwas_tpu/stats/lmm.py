@@ -15,7 +15,7 @@ lambda the ML profile likelihood (over a, b and the scale tau) is
 lambda is optimized on a log grid + fixed-iteration golden-section refine
 (GEMMA: Brent in [1e-5, 1e5]); the null model (W only) is optimized once.
 p_lrt = chi2_sf(2 (l1 - l0), df=1). Everything is vmapped over variants and
-runs as one jit on the TPU — the reference's farm of GEMMA processes
+runs as one jit on the device — the reference's farm of GEMMA processes
 (functions.py:61-66) becomes a single batched kernel.
 """
 from __future__ import annotations
@@ -61,9 +61,9 @@ def _profile_ll2(log10_lam, d, w1t, xt, yt):
     """Closed-form c==2 specialization (intercept w1t + variant xt, both
     rotated): identical math to _profile_ll with Xt = [w1t, xt], but every
     intermediate is a scalar per lambda — no (c, c) matrices. Under a huge
-    vmap over (columns, variants, grid) on TPU the tiny Gram matrices pad to
-    (8, 128) vregs (a measured 13x HLO-temp blowup -> OOM at production
-    candidate counts); this form keeps temps at (batch, grid) width.
+    vmap over (columns, variants, grid) the tiny Gram matrices pad out to
+    hardware tiles and blow up the compiled temporaries at production
+    candidate counts; this form keeps temps at (batch, grid) width.
     Returns (ll, beta_variant)."""
     n = yt.shape[0]
     lam = jnp.power(10.0, log10_lam)
@@ -146,7 +146,7 @@ def lmm_scan(genotypes, y, K_eigvals, K_eigvecs, covariates=None,
 
     if covariates is None:
         # intercept-only: closed-form c==1/c==2 scalar path (no (c, c)
-        # Gram matrices — see _profile_ll2 for why this matters on TPU)
+        # Gram matrices — see _profile_ll2 for why this matters)
         w1t = jnp.sum(U, axis=0)                          # U' 1
         _, ll_null, _ = _optimize(
             lambda g: (_profile_ll1(g, d, w1t, yt), jnp.float32(0)),
@@ -197,20 +197,29 @@ def lmm_scan_columns(genotypes, ys, K_eigvals, K_eigvecs,
     )(jnp.asarray(genotypes), jnp.asarray(ys))
 
 
-@functools.partial(jax.jit, static_argnames=("n", "n_grid", "n_refine"))
+# XLA's GPU autotuner times candidate GEMM algorithms at compile time and
+# keeps the fastest, so two compilations of the same program can round
+# differently: p-values then differ in their last bits between a run that
+# compiled afresh and one that loaded the cache (or another process).
+# Deterministic ops turn the autotuner off; every compilation of the device
+# LMM then gives the same bits.
+@functools.partial(jax.jit, static_argnames=("n", "n_grid", "n_refine"),
+                   compiler_options={"xla_gpu_deterministic_ops": True})
 def lmm_scan_columns_packed(packed_genos, ys, K_eigvals, K_eigvecs, *,
                             n: int, n_grid: int = 64,
                             n_refine: int = 40) -> LMMResult:
     """lmm_scan_columns fed PACKED presence bits, unpacked on-device.
 
     packed_genos (P, M, W32) uint32 bit-planes (LSB-first lanes, >= n bits),
-    ys (P, n). This is the TPU fast path of the GEMMA-farm replacement: the
+    ys (P, n). This is the accelerator path of the GEMMA-farm replacement: the
     host ships ~n/8 bytes per genotype instead of 8-byte floats (the f64
     stack for 101 x 10001 x 1008 is ~800 MB/dispatch; the packed planes are
     ~13 MB), and the ~10^12 flops of profile-likelihood optimization run on
-    the accelerator instead of the host. Accumulation is f32 on device —
-    validated against the f64 host route in tests (p-value agreement to
-    ~1e-3, comfortably inside the permutation-threshold resolution).
+    the accelerator instead of the host. Accumulation is f32 on device:
+    the likelihood-ratio statistic agrees with the f64 host route to a few
+    1e-2 (f32 rounding of log-likelihoods ~1e3), so -log10 p agrees to
+    ~1e-2 where p < 1e-3, inside the permutation-threshold resolution;
+    chip_smoke.phase_lmm derives the bounds.
     """
     from ..ops.bitplanes import unpack_bits
     w = jnp.asarray(K_eigvals, jnp.float32)

@@ -1,6 +1,6 @@
 """Worker for the two-process distributed scan test (see test_multiprocess.py).
 
-Each process owns half the k-mer rows (as a DCN host shard would), builds the
+Each process owns half the k-mer rows (as a host shard would), builds the
 global 1-D mesh over both processes' CPU devices, and runs the sharded scan
 step; process 0 writes the final replicated top-k to disk.
 """
@@ -68,7 +68,7 @@ def main():
     d = mesh.devices.size
     bstate = sharding.init_sharded_buffered_state(mesh, p, k, buf_cap=8 * 4)
     bstep = sharding.build_sharded_scan_step_buffered(
-        mesh, n_used=n, min_count=1, kernel="xla", cand_c=8, cand_k=8)
+        mesh, n_used=n, min_count=1, cand_c=8, cand_k=8)
     half_rows = r // 2
     for b in range(2):                        # rows [0,512) then [512,1024)
         gsl = slice(b * half_rows, (b + 1) * half_rows)

@@ -79,7 +79,7 @@ def test_two_process_sharded_scan(tmp_path):
         bstate = ss.scan_step_buffered(
             bstate, jnp.asarray(packed[sl]), jnp.asarray(popcnt[sl]),
             jnp.asarray(lo[sl]), jnp.asarray(hi[sl]), yp, ysum,
-            n_used=n, min_count=1, kernel="xla", cand_c=8, cand_k=8)
+            n_used=n, min_count=1, cand_c=8, cand_k=8)
     bref = topk.finalize(ss.flush_buffered(bstate))
     for j in range(p_):
         nv = len(bref[j][0])

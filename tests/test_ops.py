@@ -65,24 +65,6 @@ def test_score_batch_matches_reference(min_count):
     np.testing.assert_allclose(got, expect, rtol=2e-5, atol=1e-4)
 
 
-def test_score_batch_pallas_interpret_matches_xla():
-    # Pallas kernel in interpret mode (CPU) must agree with the XLA path
-    from functools import partial
-    import jax.experimental.pallas as pl
-    rng = np.random.default_rng(3)
-    bits, packed, y, n_pad = rand_problem(rng, r=256, n=100, p=3)
-    n = bits.shape[1]
-    yp, ysum = score.prepare_phenotypes(y, n_pad)
-    pc = jnp.asarray(bits.sum(axis=1), jnp.float32)
-    xla = score.score_batch(jnp.asarray(packed), pc, yp, ysum,
-                            n_used=n, min_count=2)
-    from jax.experimental.pallas import tpu as pltpu
-    with pltpu.force_tpu_interpret_mode():
-        pal = score.score_batch_pallas(jnp.asarray(packed), pc, yp, ysum,
-                                       n_used=n, min_count=2, tile_rows=128)
-    np.testing.assert_allclose(np.asarray(pal), np.asarray(xla), rtol=1e-5, atol=1e-5)
-
-
 def test_topk_streaming_matches_global_sort():
     rng = np.random.default_rng(4)
     total, p, k = 1000, 3, 50
@@ -191,26 +173,6 @@ def test_strided_top_k_from_bmax_matches_flat():
     assert n_exact >= 10
 
 
-def test_score_bmax_pallas_interpret_matches_xla():
-    from jax.experimental.pallas import tpu as pltpu
-    rng = np.random.default_rng(13)
-    bits, packed, y, n_pad = rand_problem(rng, r=256, n=100, p=3)
-    n = bits.shape[1]
-    yp, ysum = score.prepare_phenotypes(y, n_pad)
-    pc = jnp.asarray(bits.sum(axis=1), jnp.float32)
-    xla = np.asarray(score.score_batch(jnp.asarray(packed), pc, yp, ysum,
-                                       n_used=n, min_count=2)).T
-    xla = np.where(np.asarray(pc)[None, :] > 0, xla, -np.inf)
-    with pltpu.force_tpu_interpret_mode():
-        sc, bmax = score.score_batch_t_pallas_bmax(
-            jnp.asarray(packed), pc, yp, ysum, n_used=n, min_count=2,
-            tile_rows=128, block=16)
-    np.testing.assert_allclose(np.asarray(sc), xla, rtol=1e-5, atol=1e-5)
-    expect_bmax = _strided_bmax(xla, 16, 128)
-    np.testing.assert_allclose(np.asarray(bmax), expect_bmax,
-                               rtol=1e-5, atol=1e-5)
-
-
 def test_scan_step_buffered_matches_plain():
     """Buffered deferred-merge scan must produce exactly the plain path's
     final top-k (values AND rows) across a long tie-heavy stream, exercising
@@ -238,11 +200,11 @@ def test_scan_step_buffered_matches_plain():
         lo, hi = jnp.asarray(lo), jnp.asarray(hi)
         state_p = scanstep.scan_step(state_p, packed, pc, lo, hi, yp, ysum,
                                      n_used=n, min_count=min_count,
-                                     kernel="xla", cand_k=8)
+                                     cand_k=8)
         prev_n = int(state_b.buf_n)
         state_b = scanstep.scan_step_buffered(
             state_b, packed, pc, lo, hi, yp, ysum, n_used=n,
-            min_count=min_count, kernel="xla", cand_c=8, cand_k=12)
+            min_count=min_count, cand_c=8, cand_k=12)
         if int(state_b.buf_n) > prev_n:
             n_buffered += 1
     assert n_buffered >= 5, "buffer path never engaged; test is vacuous"
@@ -266,7 +228,7 @@ def test_scan_step_buffered_multi_matches_sequential():
     y = rng.normal(size=(n, p)).astype(np.float32)
     yp, ysum = score_ops.prepare_phenotypes(y, n_pad)
     kw = dict(y_padded=yp, y_sum=ysum, n_used=n, min_count=2,
-              kernel="xla", cand_c=8, cand_k=8)
+              cand_c=8, cand_k=8)
     packed = np.zeros((B, r, w32), np.uint32)
     popcnt = np.zeros((B, r), np.float32)
     los = np.zeros((B, r), np.int32)
@@ -320,7 +282,7 @@ def test_scan_step_compact_matches_plain():
     for packed, pc, lo, hi in batches:
         state_p = scanstep.scan_step(state_p, packed, pc, lo, hi, yp, ysum,
                                      n_used=n, min_count=min_count,
-                                     kernel="xla", cand_k=8)
+                                     cand_k=8)
 
     for tile_rows in (64, 16):      # c == n_tiles and c < n_tiles
         state_c = scanstep.init_buffered_state(p, k, buf_cap=24)
@@ -343,72 +305,6 @@ def test_scan_step_compact_matches_plain():
                              np.asarray(state_p.row_hi)),
             topk.decode_rows(np.asarray(final_c.row_lo),
                              np.asarray(final_c.row_hi)))
-
-
-def test_score_tilemax_pallas_interpret_matches_xla():
-    from jax.experimental.pallas import tpu as pltpu
-    from kmersgwas_tpu.ops import scanstep
-    rng = np.random.default_rng(16)
-    bits, packed, y, n_pad = rand_problem(rng, r=256, n=100, p=3)
-    n = bits.shape[1]
-    yp, ysum = score.prepare_phenotypes(y, n_pad)
-    pc = jnp.asarray(bits.sum(axis=1), jnp.float32)
-    # tie-heavy thresholds: include -inf, a mid quantile, and +inf
-    sc_ref = np.asarray(score.score_batch(jnp.asarray(packed), pc, yp, ysum,
-                                          n_used=n, min_count=2)).T
-    sc_ref = np.where(np.asarray(pc)[None, :] > 0, sc_ref, -np.inf)
-    for th_val in (-np.inf, np.quantile(sc_ref, 0.9), np.inf):
-        th = jnp.full((3,), th_val, jnp.float32)
-        tm_x, ta_x, tm2_x, ta2_x, tm3_x, ta3_x, n2_x, n3_x, ct_x = \
-            scanstep._tilemax(
-                jnp.asarray(packed), pc, yp, ysum, th, n, 2, "xla", 64)
-        with pltpu.force_tpu_interpret_mode():
-            (tm_p, ta_p, tm2_p, ta2_p, tm3_p, ta3_p, n2_p, n3_p, ct_p) = \
-                score.score_batch_t_pallas_tilemax(
-                    jnp.asarray(packed), pc, yp, ysum, th,
-                    n_used=n, min_count=2, tile_rows=64)
-        np.testing.assert_allclose(np.asarray(tm_p), np.asarray(tm_x),
-                                   rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(tm2_p), np.asarray(tm2_x),
-                                   rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(tm3_p), np.asarray(tm3_x),
-                                   rtol=1e-5, atol=1e-5)
-        np.testing.assert_array_equal(np.asarray(ct_p), np.asarray(ct_x))
-        np.testing.assert_array_equal(np.asarray(n2_p), np.asarray(n2_x))
-        # lanes: the captured value at each returned lane must be genuine;
-        # tie resolution between implementations is free to differ
-        s3 = np.where(np.asarray(pc)[None, :] > 0, sc_ref,
-                      -np.inf).reshape(3, -1, 64)
-        for ta, tm in ((ta_p, tm_p), (ta_x, tm_x)):
-            picked = np.take_along_axis(s3, np.asarray(ta)[:, :, None],
-                                        axis=2)[:, :, 0]
-            np.testing.assert_allclose(picked, np.asarray(tm),
-                                       rtol=1e-5, atol=1e-5)
-        # second lane must differ from the first and hold the second value
-        # wherever the second value is unique and below the max
-        srt = np.sort(s3, axis=2)[:, :, ::-1]
-        uniq = (srt[:, :, 0] > srt[:, :, 1]) & (srt[:, :, 1] > srt[:, :, 2])
-        for ta2, tm2 in ((ta2_p, tm2_p), (ta2_x, tm2_x)):
-            picked2 = np.take_along_axis(
-                s3, np.clip(np.asarray(ta2), 0, 63)[:, :, None],
-                axis=2)[:, :, 0]
-            np.testing.assert_allclose(picked2[uniq],
-                                       np.asarray(tm2)[uniq],
-                                       rtol=1e-5, atol=1e-5)
-        # third capture: the exactness guard (tmax3 <= th) | (n3 == 1)
-        # depends on n3 — pin it between paths, and spot-check targ3 where
-        # the third value is unique (mirrors the targ2 assertion)
-        np.testing.assert_array_equal(np.asarray(n3_p), np.asarray(n3_x))
-        np.testing.assert_allclose(np.asarray(tm3_p), np.asarray(tm3_x),
-                                   rtol=1e-5, atol=1e-5)
-        uniq3 = uniq & (srt[:, :, 2] > srt[:, :, 3])
-        for ta3, tm3 in ((ta3_p, tm3_p), (ta3_x, tm3_x)):
-            picked3 = np.take_along_axis(
-                s3, np.clip(np.asarray(ta3), 0, 63)[:, :, None],
-                axis=2)[:, :, 0]
-            np.testing.assert_allclose(picked3[uniq3],
-                                       np.asarray(tm3)[uniq3],
-                                       rtol=1e-5, atol=1e-5)
 
 
 def test_scan_step_compact_narrow_append_exact():
@@ -438,7 +334,7 @@ def test_scan_step_compact_narrow_append_exact():
     for packed, pc, lo, hi in batches:
         state_p = scanstep.scan_step(state_p, packed, pc, lo, hi, yp, ysum,
                                      n_used=n, min_count=min_count,
-                                     kernel="xla", cand_k=8)
+                                     cand_k=8)
 
     state_c = scanstep.init_buffered_state(p, k, buf_cap=96)
     n_narrow = n_wide = 0
@@ -462,93 +358,6 @@ def test_scan_step_compact_narrow_append_exact():
                          np.asarray(state_p.row_hi)),
         topk.decode_rows(np.asarray(final_c.row_lo),
                          np.asarray(final_c.row_hi)))
-
-
-def test_score_tilemax_pre_transposed_equivalent():
-    """pre_transposed=True on an already-(W32, R) input must match the
-    default layout bit-for-bit (interpret mode)."""
-    from jax.experimental.pallas import tpu as pltpu
-    rng = np.random.default_rng(23)
-    bits, packed, y, n_pad = rand_problem(rng, r=128, n=90, p=3)
-    n = bits.shape[1]
-    yp, ysum = score.prepare_phenotypes(y, n_pad)
-    pc = jnp.asarray(bits.sum(axis=1), jnp.float32)
-    th = jnp.full((3,), 5.0, jnp.float32)
-    with pltpu.force_tpu_interpret_mode():
-        ref = score.score_batch_t_pallas_tilemax(
-            jnp.asarray(packed), pc, yp, ysum, th, n_used=n, min_count=2,
-            tile_rows=64)
-        got = score.score_batch_t_pallas_tilemax(
-            jnp.asarray(packed).T, pc, yp, ysum, th, n_used=n, min_count=2,
-            tile_rows=64, pre_transposed=True)
-    for a, b in zip(got, ref):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_score_precision_plumbing_interpret():
-    """precision="highest" must plumb through the tilemax kernel and the
-    compact step without changing interpret-mode results (interpret mode
-    runs f32 either way; on hardware it selects the multi-pass MXU dot)."""
-    from jax.experimental.pallas import tpu as pltpu
-    from kmersgwas_tpu.ops import scanstep
-    rng = np.random.default_rng(29)
-    bits, packed, y, n_pad = rand_problem(rng, r=128, n=60, p=3)
-    n = bits.shape[1]
-    yp, ysum = score.prepare_phenotypes(y, n_pad)
-    pc = jnp.asarray(bits.sum(axis=1), jnp.float32)
-    th = jnp.full((3,), 1.0, jnp.float32)
-    with pltpu.force_tpu_interpret_mode():
-        a = score.score_batch_t_pallas_tilemax(
-            jnp.asarray(packed), pc, yp, ysum, th, n_used=n, min_count=2,
-            tile_rows=64, precision="highest")
-        b = score.score_batch_t_pallas_tilemax(
-            jnp.asarray(packed), pc, yp, ysum, th, n_used=n, min_count=2,
-            tile_rows=64, precision="default")
-    np.testing.assert_allclose(np.asarray(a[0]), np.asarray(b[0]),
-                               rtol=1e-5)
-    # XLA-kernel compact step accepts the arg (no-op there)
-    st = scanstep.init_buffered_state(3, 8, buf_cap=24)
-    lo, hi = topk.encode_rows(np.arange(128))
-    st = scanstep.scan_step_compact(
-        st, jnp.asarray(packed), pc, jnp.asarray(lo), jnp.asarray(hi),
-        yp, ysum, n_used=n, min_count=2, kernel="xla", cand_c=2, cand_k=6,
-        tile_rows=64, precision="highest")
-    assert np.isfinite(float(np.asarray(st.thresh)[0]))
-
-
-def test_scan_step_compact_pre_transposed_stream_equal():
-    """Full compact-step streaming equality with pre_transposed=True inputs
-    (the bench's layout): final top-k bit-identical to the row-major path
-    across append/flush/fallback branches."""
-    from kmersgwas_tpu.ops import scanstep
-    rng = np.random.default_rng(35)
-    n, p, k = 40, 3, 16
-    n_pad = 128
-    rows_per, n_batches = 256, 16
-    min_count = 2
-    y = rng.normal(size=(n, p))
-    yp, ysum = score.prepare_phenotypes(y, n_pad)
-
-    st_a = scanstep.init_buffered_state(p, k, buf_cap=24)
-    st_b = scanstep.init_buffered_state(p, k, buf_cap=24)
-    kw = dict(y_padded=yp, y_sum=ysum, n_used=n, min_count=min_count,
-              kernel="xla", cand_c=4, cand_k=12, tile_rows=64)
-    for b in range(n_batches):
-        bits = rng.integers(0, 2, size=(rows_per, n)).astype(np.uint8)
-        padded = np.zeros((rows_per, n_pad), dtype=np.uint8)
-        padded[:, :n] = bits
-        packed = jnp.asarray(bitplanes.pack_bits_np(padded))
-        pc = jnp.asarray(bits.sum(axis=1), jnp.float32)
-        lo, hi = topk.encode_rows(np.arange(b * rows_per, (b + 1) * rows_per))
-        lo, hi = jnp.asarray(lo), jnp.asarray(hi)
-        st_a = scanstep.scan_step_compact(st_a, packed, pc, lo, hi, **kw)
-        st_b = scanstep.scan_step_compact(st_b, packed.T, pc, lo, hi,
-                                          pre_transposed=True, **kw)
-    fa = scanstep.flush_buffered(st_a)
-    fb = scanstep.flush_buffered(st_b)
-    np.testing.assert_array_equal(np.asarray(fa.scores), np.asarray(fb.scores))
-    np.testing.assert_array_equal(np.asarray(fa.row_lo), np.asarray(fb.row_lo))
-    np.testing.assert_array_equal(np.asarray(fa.row_hi), np.asarray(fb.row_hi))
 
 
 def test_scan_step_compact_c2_matches_plain():
@@ -579,7 +388,7 @@ def test_scan_step_compact_c2_matches_plain():
     for packed, pc, lo, hi in batches:
         state_p = scanstep.scan_step(state_p, packed, pc, lo, hi, yp, ysum,
                                      n_used=n, min_count=min_count,
-                                     kernel="xla", cand_k=8)
+                                     cand_k=8)
 
     # tile_rows=16 -> n_tiles=16, c=8, c2=2: width = 8 + 4 = 12 | buf 24
     state_c = scanstep.init_buffered_state(p, k, buf_cap=24)
@@ -604,191 +413,11 @@ def test_scan_step_compact_c2_matches_plain():
                          np.asarray(final_c.row_hi)))
 
 
-def test_score_tilemax_chunked_and_blocked_matches_single(monkeypatch):
-    """Wide phenotype axis: the tilemax kernel chunks P past _P_CHUNK and
-    switches to revisited 128-lane output blocks past the VMEM plane
-    budget; both modes must reproduce the single-call kernel's planes
-    EXACTLY (interpret mode) — same per-element math, different storage."""
-    import jax as _jax
-    from jax.experimental.pallas import tpu as pltpu
-    from kmersgwas_tpu.ops import score as score_mod
-
-    rng = np.random.default_rng(23)
-    p_wide = 20
-    bits, packed, y, n_pad = rand_problem(rng, r=256, n=60, p=p_wide)
-    n = bits.shape[1]
-    yp, ysum = score_mod.prepare_phenotypes(y, n_pad)
-    pc = jnp.asarray(bits.sum(axis=1), jnp.float32)
-    th = jnp.asarray(rng.normal(size=p_wide).astype(np.float32)) ** 2
-
-    def run():
-        with pltpu.force_tpu_interpret_mode():
-            return [np.asarray(o) for o in
-                    score_mod.score_batch_t_pallas_tilemax(
-                        jnp.asarray(packed), pc, yp, ysum, th,
-                        n_used=n, min_count=2, tile_rows=64)]
-
-    ref = run()
-
-    # chunked path (chunk=8 < 20 columns)
-    _jax.clear_caches()
-    monkeypatch.setattr(score_mod, "_P_CHUNK", 8)
-    got = run()
-    for r_, g_ in zip(ref, got):
-        np.testing.assert_array_equal(g_, r_)
-
-    # + blocked store mode (budget 1 byte)
-    _jax.clear_caches()
-    monkeypatch.setattr(score_mod, "_VMEM_PLANE_BUDGET", 1)
-    got = run()
-    for r_, g_ in zip(ref, got):
-        np.testing.assert_array_equal(g_, r_)
-    _jax.clear_caches()
-
-
-def test_score_bmax_chunked_matches_xla(monkeypatch):
-    """score_batch_t_pallas[_bmax] P-chunking reproduces the single-call
-    result (interpret mode)."""
-    from jax.experimental.pallas import tpu as pltpu
-    from kmersgwas_tpu.ops import score as score_mod
-
-    rng = np.random.default_rng(24)
-    bits, packed, y, n_pad = rand_problem(rng, r=128, n=50, p=12)
-    n = bits.shape[1]
-    yp, ysum = score_mod.prepare_phenotypes(y, n_pad)
-    pc = jnp.asarray(bits.sum(axis=1), jnp.float32)
-    with pltpu.force_tpu_interpret_mode():
-        sc1 = score_mod.score_batch_t_pallas(
-            jnp.asarray(packed), pc, yp, ysum, n_used=n, min_count=2,
-            tile_rows=64)
-        b1s, b1m = score_mod.score_batch_t_pallas_bmax(
-            jnp.asarray(packed), pc, yp, ysum, n_used=n, min_count=2,
-            tile_rows=64, block=16)
-    monkeypatch.setattr(score_mod, "_P_CHUNK", 5)
-    with pltpu.force_tpu_interpret_mode():
-        sc2 = score_mod.score_batch_t_pallas(
-            jnp.asarray(packed), pc, yp, ysum, n_used=n, min_count=2,
-            tile_rows=64)
-        b2s, b2m = score_mod.score_batch_t_pallas_bmax(
-            jnp.asarray(packed), pc, yp, ysum, n_used=n, min_count=2,
-            tile_rows=64, block=16)
-    np.testing.assert_array_equal(np.asarray(sc1), np.asarray(sc2))
-    np.testing.assert_array_equal(np.asarray(b1s), np.asarray(b2s))
-    np.testing.assert_array_equal(np.asarray(b1m), np.asarray(b2m))
-
-
-def test_scan_step_compact_topw_matches_plain():
-    """cand_w (in-kernel running top-W mode, XLA mirror here) must produce
-    exactly the plain path's final top-k (values AND rows) across a
-    tie-heavy stream, with the narrow append, wide append, and fallback
-    branches all engaging."""
-    from kmersgwas_tpu.ops import scanstep
-    rng = np.random.default_rng(33)
-    n, p, k = 40, 3, 16
-    n_pad = 128
-    rows_per, n_batches = 256, 30
-    min_count = 2
-    y = rng.normal(size=(n, p))
-    yp, ysum = score.prepare_phenotypes(y, n_pad)
-
-    batches = []
-    for b in range(n_batches):
-        bits = rng.integers(0, 2, size=(rows_per, n)).astype(np.uint8)
-        padded = np.zeros((rows_per, n_pad), dtype=np.uint8)
-        padded[:, :n] = bits
-        packed = jnp.asarray(bitplanes.pack_bits_np(padded))
-        pc = jnp.asarray(bits.sum(axis=1), jnp.float32)
-        lo, hi = topk.encode_rows(np.arange(b * rows_per, (b + 1) * rows_per))
-        batches.append((packed, pc, jnp.asarray(lo), jnp.asarray(hi)))
-
-    state_p = topk.init_state(p, k)
-    for packed, pc, lo, hi in batches:
-        state_p = scanstep.scan_step(state_p, packed, pc, lo, hi, yp, ysum,
-                                     n_used=n, min_count=min_count,
-                                     kernel="xla", cand_k=8)
-
-    for tile_rows in (64, 16):
-        state_c = scanstep.init_buffered_state(p, k, buf_cap=24)
-        n_narrow = n_wide = n_skip = 0
-        for packed, pc, lo, hi in batches:
-            prev_n = int(state_c.buf_n)
-            state_c = scanstep.scan_step_compact(
-                state_c, packed, pc, lo, hi, yp, ysum, n_used=n,
-                min_count=min_count, kernel="xla", cand_k=12,
-                tile_rows=tile_rows, cand_w=8, cand_q=4)
-            d = (int(state_c.buf_n) - prev_n) % 24
-            if d == 4:
-                n_narrow += 1
-            elif d == 8:
-                n_wide += 1
-            else:
-                n_skip += 1       # fallback (buf reset) or flush boundary
-        assert n_narrow >= 3, f"narrow append never engaged ({n_narrow})"
-        assert n_narrow + n_wide < n_batches, "fallback never engaged"
-        final_c = scanstep.flush_buffered(state_c)
-        np.testing.assert_array_equal(np.asarray(state_p.scores),
-                                      np.asarray(final_c.scores))
-        np.testing.assert_array_equal(
-            topk.decode_rows(np.asarray(state_p.row_lo),
-                             np.asarray(state_p.row_hi)),
-            topk.decode_rows(np.asarray(final_c.row_lo),
-                             np.asarray(final_c.row_hi)))
-
-
-def test_score_topw_pallas_interpret_matches_xla():
-    """The in-kernel running top-W kernel (interpret mode) must agree with
-    the XLA mirror: identical guards and candidate VALUES; identical
-    (value, lane) pairs on the hot prefix (cold tail order is free)."""
-    from jax.experimental.pallas import tpu as pltpu
-    from kmersgwas_tpu.ops import scanstep
-    rng = np.random.default_rng(34)
-    bits, packed, y, n_pad = rand_problem(rng, r=256, n=100, p=3)
-    n = bits.shape[1]
-    yp, ysum = score.prepare_phenotypes(y, n_pad)
-    pc = jnp.asarray(bits.sum(axis=1), jnp.float32)
-    sc_ref = np.asarray(score.score_batch(jnp.asarray(packed), pc, yp, ysum,
-                                          n_used=n, min_count=2)).T
-    sc_ref = np.where(np.asarray(pc)[None, :] > 0, sc_ref, -np.inf)
-    for th_val in (-np.inf, np.quantile(sc_ref, 0.9),
-                   np.quantile(sc_ref, 0.999), np.inf):
-        th = jnp.full((3,), th_val, jnp.float32)
-        v_x, g_x, ok_x = scanstep._topw_xla(
-            jnp.asarray(packed), pc, yp, ysum, th, n, 2, 64, 128)
-        with pltpu.force_tpu_interpret_mode():
-            v_p, g_p, ok_p = score.score_batch_t_pallas_topw(
-                jnp.asarray(packed), pc, yp, ysum, th,
-                n_used=n, min_count=2, tile_rows=64, cand_w=128)
-        # the kernel's replace-min list is unsorted; apply the step's
-        # (value desc, lane asc) repair sort before comparing
-        order = np.lexsort((np.asarray(g_p), -np.asarray(v_p)), axis=1)
-        v_p = np.take_along_axis(np.asarray(v_p), order, axis=1)
-        g_p = np.take_along_axis(np.asarray(g_p), order, axis=1)
-        np.testing.assert_array_equal(np.asarray(ok_p), np.asarray(ok_x))
-        np.testing.assert_allclose(v_p, np.asarray(v_x),
-                                   rtol=1e-5, atol=1e-5)
-        # hot prefix: exact (value, lane) agreement column by column —
-        # guaranteed whenever the step would USE the candidates (its
-        # min <= thresh guard holds, so boundary twins are cold)
-        for j in range(3):
-            if not (v_x[j, -1] <= th_val):
-                continue        # step falls back; outputs unused
-            hot = np.asarray(v_x[j]) > th_val
-            np.testing.assert_array_equal(g_p[j][hot],
-                                          np.asarray(g_x[j])[hot])
-        # every returned lane's true score equals the returned value
-        for vv, gg in ((v_p, g_p), (v_x, g_x)):
-            got = np.take_along_axis(sc_ref, np.asarray(gg), axis=1)
-            finite = np.isfinite(np.asarray(vv))
-            np.testing.assert_allclose(got[finite],
-                                       np.asarray(vv)[finite],
-                                       rtol=1e-5, atol=1e-5)
-
-
 def test_scan_step_compact_colgroup_matches_plain():
     """Per-column-group decisions (col_group < P): the final top-k must be
     exactly the plain path's even when one column group is persistently
     hot/tie-heavy (forcing ITS fallback while other groups keep appending),
-    for both the tile-max and the cand_w candidate paths."""
+    with and without the narrow append."""
     from kmersgwas_tpu.ops import scanstep
     rng = np.random.default_rng(35)
     n, p, k = 40, 10, 12
@@ -814,10 +443,9 @@ def test_scan_step_compact_colgroup_matches_plain():
     for packed, pc, lo, hi in batches:
         state_p = scanstep.scan_step(state_p, packed, pc, lo, hi, yp, ysum,
                                      n_used=n, min_count=min_count,
-                                     kernel="xla", cand_k=8)
+                                     cand_k=8)
 
-    for mode_kw in (dict(cand_c=4, cand_q=4),
-                    dict(cand_w=8, cand_q=4)):
+    for mode_kw in (dict(cand_c=4, cand_q=4), dict(cand_c=4)):
         # col_group=4 -> groups [0:4) [4:8) [8:10): decisions cross a
         # group boundary and the last group is ragged
         state_c = scanstep.init_buffered_state(p, k, buf_cap=24)
@@ -839,3 +467,215 @@ def test_scan_step_compact_colgroup_matches_plain():
                              np.asarray(state_p.row_hi)),
             topk.decode_rows(np.asarray(final_c.row_lo),
                              np.asarray(final_c.row_hi)))
+
+
+def _numpy_tile_top3(sc, thresh, tile_rows):
+    """Literal NumPy transcription of the per-tile top-3 (score.tile_top3)
+    over a (P, R) score matrix: first-occurrence argmax picks, each pick
+    masked to -inf before the next, multiplicities counted over the lanes
+    left after masking."""
+    p, r = sc.shape
+    t = r // tile_rows
+    out = [np.zeros((p, t), d) for d in (np.float32, np.int32) * 3]
+    out += [np.zeros((p, t), np.int32) for _ in range(3)]
+    for j in range(p):
+        for i in range(t):
+            s = sc[j, i * tile_rows:(i + 1) * tile_rows].astype(np.float32)
+            m1, a1 = s.max(), int(np.argmax(s))
+            s2 = s.copy()
+            s2[a1] = -np.inf
+            m2, a2 = s2.max(), int(np.argmax(s2))
+            s3 = s2.copy()
+            s3[a2] = -np.inf
+            m3, a3 = s3.max(), int(np.argmax(s3))
+            vals = (m1, a1, m2, a2, m3, a3, (s2 == m2).sum(),
+                    (s3 == m3).sum(), (s > thresh[j]).sum())
+            for o, v in zip(out, vals):
+                o[j, i] = v
+    return out
+
+
+def _tilemax_case(case):
+    """(packed, popcnt, y, n, thresh, tile_rows) for one edge case; y holds
+    small integers so every score is exact in f32 whatever the dot order
+    (kernel and XLA path then agree bit for bit)."""
+    rng = np.random.default_rng(40)
+    r, n, p, tile_rows = 256, 70, 3, 64
+    if case == "p_gt_128":
+        p = 130
+    bits = rng.integers(0, 2, size=(r, n)).astype(np.uint8)
+    if case == "min_count_edge":
+        # popcounts at and around min_count=5 from both ends
+        for i, c in enumerate((4, 5, 6, n - 6, n - 5, n - 4) * 8):
+            bits[i] = 0
+            bits[i, :c] = 1
+    if case == "ties":
+        bits[1::2] = bits[0::2]          # every pattern twice per tile
+        bits[64:128] = bits[0]           # a whole tile of one pattern
+    y = rng.integers(-4, 5, size=(n, p)).astype(np.float64)
+    n_pad = 128
+    padded = np.zeros((r, n_pad), np.uint8)
+    padded[:, :n] = bits
+    packed = bitplanes.pack_bits_np(padded)
+    popcnt = bits.sum(axis=1).astype(np.float32)
+    if case == "padding":
+        popcnt[100:] = 0                 # padding rows, incl. whole tiles
+        packed[100:] = 0
+    thresh = np.full(p, 20.0, np.float32)
+    thresh[0] = -np.inf
+    return packed, popcnt, y, n, thresh, tile_rows
+
+
+TILEMAX_CASES = ["p_le_128", "p_gt_128", "padding", "min_count_edge", "ties"]
+
+
+@pytest.mark.parametrize("case", TILEMAX_CASES)
+def test_tilemax_xla_matches_numpy(case):
+    """The XLA per-tile top-3 (scanstep._tilemax) equals the NumPy
+    transcription on the same scores, plane for plane."""
+    from kmersgwas_tpu.ops import scanstep
+    packed, popcnt, y, n, thresh, tile_rows = _tilemax_case(case)
+    yp, ysum = score.prepare_phenotypes(y, 128)
+    args = (jnp.asarray(packed), jnp.asarray(popcnt), yp, ysum)
+    sc = np.asarray(scanstep._scores_t_xla(*args, n, 5))
+    got = scanstep._tilemax(*args, jnp.asarray(thresh), n, 5, "xla",
+                            tile_rows)
+    expect = _numpy_tile_top3(sc, thresh, tile_rows)
+    for g, e in zip(got, expect):
+        np.testing.assert_array_equal(np.asarray(g), e)
+
+
+@pytest.mark.parametrize("case", TILEMAX_CASES)
+def test_tilemax_triton_interpret_matches_xla(case):
+    """The Triton scan kernel (interpret mode) reproduces the XLA path's
+    nine planes exactly, in both precisions."""
+    from kmersgwas_tpu.ops import scanstep
+    packed, popcnt, y, n, thresh, tile_rows = _tilemax_case(case)
+    yp, ysum = score.prepare_phenotypes(y, 128)
+    args = (jnp.asarray(packed), jnp.asarray(popcnt), yp)
+    ref = scanstep._tilemax(*args, ysum, jnp.asarray(thresh), n, 5, "xla",
+                            tile_rows)
+    for precision in ("default", "highest"):
+        got = score.score_tilemax_triton(
+            *args, jnp.asarray(thresh), n_used=n, min_count=5,
+            tile_rows=tile_rows, precision=precision, interpret=True)
+        for g, e in zip(got, ref):
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(e))
+
+
+def test_split_phenotypes_reconstructs():
+    """The bit-plane-major bf16 terms sum back to y (three terms: f32
+    faithful; one term: bf16 rounding) at the (32w + b) sample order."""
+    rng = np.random.default_rng(41)
+    y = rng.normal(size=(70, 5))
+    yp, _ = score.prepare_phenotypes(y, 128)
+    for n_split, tol in ((1, 4e-3), (3, 1e-7)):
+        yr = np.asarray(score.split_phenotypes(yp, n_split), np.float64)
+        assert yr.shape == (32 * n_split, 16, 128)
+        back = yr.reshape(n_split, 32, 16, 128).sum(axis=0)
+        back = back[:, :4, :5].transpose(1, 0, 2).reshape(128, 5)
+        np.testing.assert_allclose(back, np.asarray(yp), rtol=tol, atol=tol)
+
+
+def test_scan_step_compact_precision_highest_matches_default():
+    """precision="highest" plumbs through the compact step's XLA scores
+    (the CPU computes f32 either way, so the state is identical)."""
+    from kmersgwas_tpu.ops import scanstep
+    rng = np.random.default_rng(29)
+    bits, packed, y, n_pad = rand_problem(rng, r=128, n=60, p=3)
+    n = bits.shape[1]
+    yp, ysum = score.prepare_phenotypes(y, n_pad)
+    pc = jnp.asarray(bits.sum(axis=1), jnp.float32)
+    lo, hi = topk.encode_rows(np.arange(128))
+    states = []
+    for precision in ("default", "highest"):
+        st = scanstep.init_buffered_state(3, 8, buf_cap=24)
+        states.append(scanstep.scan_step_compact(
+            st, jnp.asarray(packed), pc, jnp.asarray(lo), jnp.asarray(hi),
+            yp, ysum, n_used=n, min_count=2, kernel="xla", cand_c=2,
+            cand_k=6, tile_rows=64, precision=precision))
+    for a, b in zip(*states):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert np.isfinite(float(np.asarray(states[0].thresh)[0]))
+
+
+@pytest.mark.parametrize("case", TILEMAX_CASES)
+def test_scores_triton_interpret_matches_xla(case):
+    """The full-score Triton kernel (the GPU step's fallback scores) equals
+    the XLA scores exactly, padding rows at -inf."""
+    from kmersgwas_tpu.ops import scanstep
+    packed, popcnt, y, n, _, tile_rows = _tilemax_case(case)
+    yp, ysum = score.prepare_phenotypes(y, 128)
+    args = (jnp.asarray(packed), jnp.asarray(popcnt), yp)
+    ref = np.asarray(scanstep._scores_t_xla(*args, ysum, n, 5))
+    got = score.score_t_triton(*args, n_used=n, min_count=5,
+                               tile_rows=tile_rows, interpret=True)
+    np.testing.assert_array_equal(np.asarray(got), ref)
+
+
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_scores_triton_are_scores_of_rounded_phenotype(precision):
+    """With real-valued phenotypes the kernel's scores are the f32 scores of
+    the phenotype its bf16 terms sum to, column sums included: y rounded
+    to bf16 ("default") or y itself ("highest"). Rows present in most
+    samples are where a sum of the unrounded y would show."""
+    from kmersgwas_tpu.ops import scanstep
+    rng = np.random.default_rng(43)
+    r, n, p = 256, 70, 5
+    bits = (rng.random((r, n)) < np.linspace(0.1, 0.95, r)[:, None])
+    padded = np.zeros((r, 128), np.uint8)
+    padded[:, :n] = bits
+    packed = jnp.asarray(bitplanes.pack_bits_np(padded))
+    popcnt = jnp.asarray(bits.sum(axis=1), jnp.float32)
+    yp, _ = score.prepare_phenotypes(rng.normal(size=(n, p)), 128)
+    y_ref = yp.astype(jnp.bfloat16).astype(jnp.float32) \
+        if precision == "default" else yp
+    ref = np.asarray(scanstep._scores_t_xla(
+        packed, popcnt, y_ref, jnp.sum(y_ref, axis=0), n, 5, "highest"))
+    got = np.asarray(score.score_t_triton(
+        packed, popcnt, yp, n_used=n, min_count=5, tile_rows=64,
+        precision=precision, interpret=True))
+    np.testing.assert_allclose(got, ref, rtol=1e-4,
+                               atol=1e-5 * float(ref.max()))
+
+
+def test_scan_step_compact_triton_interpret_matches_plain(monkeypatch):
+    """The compact step with kernel="triton" (kernels in interpret mode,
+    fallback scores from score_t_triton) selects exactly the plain step's
+    top-k over a stream that engages the append and fallback branches."""
+    import functools
+    from kmersgwas_tpu.ops import scanstep
+    for name in ("score_tilemax_triton", "score_t_triton"):
+        monkeypatch.setattr(score, name, functools.partial(
+            getattr(score, name), interpret=True))
+    rng = np.random.default_rng(42)
+    n, p, k, n_pad, rows_per = 40, 3, 16, 128, 256
+    y = rng.integers(-4, 5, size=(n, p)).astype(np.float64)
+    yp, ysum = score.prepare_phenotypes(y, n_pad)
+    state_p = topk.init_state(p, k)
+    state_c = scanstep.init_buffered_state(p, k, buf_cap=24)
+    n_append = 0
+    for b in range(12):
+        bits = rng.integers(0, 2, size=(rows_per, n)).astype(np.uint8)
+        padded = np.zeros((rows_per, n_pad), np.uint8)
+        padded[:, :n] = bits
+        packed = jnp.asarray(bitplanes.pack_bits_np(padded))
+        pc = jnp.asarray(bits.sum(axis=1), jnp.float32)
+        lo, hi = topk.encode_rows(np.arange(b * rows_per, (b + 1) * rows_per))
+        lo, hi = jnp.asarray(lo), jnp.asarray(hi)
+        state_p = scanstep.scan_step(state_p, packed, pc, lo, hi, yp, ysum,
+                                     n_used=n, min_count=2, cand_k=8)
+        prev = int(state_c.buf_n)
+        state_c = scanstep.scan_step_compact(
+            state_c, packed, pc, lo, hi, yp, ysum, n_used=n, min_count=2,
+            kernel="triton", cand_c=4, cand_k=12, tile_rows=64)
+        n_append += int(state_c.buf_n) > prev
+    assert 0 < n_append < 12, "append or fallback branch never engaged"
+    final_c = scanstep.flush_buffered(state_c)
+    np.testing.assert_array_equal(np.asarray(state_p.scores),
+                                  np.asarray(final_c.scores))
+    np.testing.assert_array_equal(
+        topk.decode_rows(np.asarray(state_p.row_lo),
+                         np.asarray(state_p.row_hi)),
+        topk.decode_rows(np.asarray(final_c.row_lo),
+                         np.asarray(final_c.row_hi)))

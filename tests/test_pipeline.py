@@ -523,6 +523,34 @@ def test_certify_column_unit():
     assert not c3         # all equal: t == s_star, cannot certify
 
 
+@pytest.mark.parametrize("freq", [0.1, 0.5, 0.9])
+def test_certify_eps_matches_error_model(freq):
+    """certify_eps's error model: scoring with the bf16-rounded phenotype
+    (and its own sum) moves a row's score by a relative error whose
+    standard deviation is certify_eps / CERTIFY_SIGMAS at that score,
+    whatever the row's carrier frequency."""
+    import jax.numpy as jnp
+    from kmersgwas_tpu.pipeline.scan import CERTIFY_SIGMAS, certify_eps
+    rng = np.random.default_rng(17)
+    n, r = 200, 20000
+    g = (rng.random((r, n)) < freq).astype(np.float64)
+    n1 = g.sum(axis=1)
+    den = n * n1 - n1 * n1
+    y = rng.normal(size=n).astype(np.float32)
+    yb = y.astype(jnp.bfloat16).astype(np.float64)
+
+    def scores(yy):
+        rr = n * (g @ yy) - n1 * yy.sum()
+        return rr * rr / np.where(den > 0, den, 1.0)
+
+    exact, rounded = scores(y.astype(np.float64)), scores(yb)
+    keep = (den > 0) & (exact > np.median(exact))
+    sigma = np.array([certify_eps(y, n, t) for t in exact[keep]]) \
+        / CERTIFY_SIGMAS
+    z = (rounded[keep] - exact[keep]) / exact[keep] / sigma
+    assert 0.9 < z.std() < 1.1, z.std()
+
+
 def test_associate_certify_topk_matches_oracle(tmp_path):
     """certify_topk on a real scan: the selected sets equal the
     score_precision='highest' oracle run, all columns certified, and the

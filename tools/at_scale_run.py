@@ -67,7 +67,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=100_000_000)
     ap.add_argument("--n", type=int, default=1008)
-    ap.add_argument("--workdir", default="/tmp/kgt_at_scale")
+    ap.add_argument("--workdir", default=".work/at_scale")
     ap.add_argument("--permutations", type=int, default=100)
     ap.add_argument("--batch_size", type=int, default=2_000_000)
     ap.add_argument("--no_dtable", action="store_true",

@@ -30,7 +30,7 @@ every configuration reaches ~64M once the tail is excluded; the old
 reports the steady-state full-batch rate (see measure_host_feed).
 
 Run: python tools/prof_r5_feedgap.py [n_rows] (default 8M; builds/reuses
-the bench's synthetic pop in /tmp/kgt_stream_bench)
+the bench's synthetic pop in .work/stream_bench)
 """
 import os
 import sys
@@ -56,7 +56,7 @@ def timed(label, fn, n_rows, reps=3):
 
 
 def main(n_rows=8_000_000, batch=2_000_000):
-    base, dtable, *_ = bench._synthetic_pop(n_rows, "/tmp/kgt_stream_bench")
+    base, dtable, *_ = bench._synthetic_pop(n_rows, ".work/stream_bench")
     dt = DTableReader(dtable)
     pad_to = batch
     stage = np.empty((pad_to, dt.hdr.w32), np.uint32)
